@@ -24,7 +24,10 @@ any failed phase makes the script exit non-zero without the result line.
      two poses against the same cached MPI rendered through the plain
      versions;
   5. as 3 for the two backward kernels, at scale 0 of the LLFF train step
-     (B=2, S=32, 384x512);
+     (B=2, S=32, 384x512); the share of the splat's target tiles that
+     take its direct route at those poses (plain torch, from the
+     coordinates), and the splat on a forced-wide input (3x zoom-out,
+     NaN rows) against its plain version;
   6. checks the two training autograd Functions (gather + splat, composite
      + its backward) against autograd through the plain versions, at a
      reduced size;
@@ -54,8 +57,11 @@ any failed phase makes the script exit non-zero without the result line.
      versions at scale 0 of the train step (B*S=64, C=7, 384x512) on a
      translation-dominated pose set (the guard passes: the anchored
      branch) and a rotation-heavy one (it fails: the exact gather);
-     times, yardsticks and bounds of the anchored branch; the autograd
-     Function against autograd through the plain anchored sample;
+     times, yardsticks and bounds of the anchored sample and of both
+     branches of the splat, each at its own poses (the splat's row
+     reports the exact branch, which the `pallas_sep` train path runs);
+     the autograd Function against autograd through the plain anchored
+     sample;
  11. as 7 with training.warp_backend pallas_sep: 4 full-width steps with
      4 launches a step of #7/#8 (and #2/#6), warp_fallback_frac per step,
      and one step through the kernels against the plain `separable`
@@ -114,13 +120,13 @@ SEP_ROLL = 0.05
 # device-time groups of a profile, by kernel name (first match wins)
 PROFILE_GROUPS = (
     ("the port's CUDA kernels", ("bilinear_sample_kernel",
-                                 "bilinear_splat_kernel",
+                                 "bilinear_splat_tiled_kernel",
                                  "volume_render_kernel",
                                  "volume_render_bwd_kernel",
                                  "src_render_blend_kernel",
                                  "fused_plane_render_kernel",
                                  "separable_sample_kernel",
-                                 "separable_splat_kernel")),
+                                 "anchored_splat_rows_kernel")),
     ("cuDNN/cuBLAS convolutions, GEMMs and layout transforms",
      ("cudnn", "xmma", "gemm", "Gemm", "cutlass", "nchwToNhwc",
       "nhwcToNchw", "sm80_", "sm90_")),
@@ -417,6 +423,26 @@ def check_train_kernels(dev):
     torch.cuda.synchronize()
     err = close("d_src", d_k, d_p, **TOL["bilinear_splat"])
     del d_p
+    log(f"  target tiles on the direct (wide) route: "
+        f"{wide_share(cx, cy, (H, W)):.4f}")
+    # a forced-wide input: coordinates zoomed out 3x about the centre,
+    # a few rows NaN (they read pixel 0). The clamp piles thousands of
+    # taps onto each border pixel; the cotangent is positive there, since
+    # signed addends would cancel and the f32 sums of two orders would
+    # differ by about the limit whatever the route (a check of the order,
+    # not of the kernel)
+    wx = ((cx - 0.5 * W) * 3.0 + 0.5 * W).contiguous()
+    wy = ((cy - 0.5 * H) * 3.0 + 0.5 * H).contiguous()
+    wx[::7, 100:103] = float("nan")
+    wy[3::7, 200:202] = float("nan")
+    pos = torch.rand(gw.shape, generator=torch.Generator(
+        device=dev).manual_seed(2), device=dev)
+    log(f"  forced-wide input (3x zoom-out, NaN rows): tiles on the direct "
+        f"route {wide_share(wx, wy, (H, W)):.4f}")
+    close("d_src (forced wide)", warp.bilinear_splat(pos, wx, wy, (H, W)),
+          warp.bilinear_splat_plain(pos, wx, wy, (H, W)),
+          **TOL["bilinear_splat"])
+    del wx, wy, pos
     grid = torch.stack([(cx + 0.5) / (0.5 * W) - 1.0,
                         (cy + 0.5) / (0.5 * H) - 1.0], dim=-1)
 
@@ -428,10 +454,11 @@ def check_train_kernels(dev):
     log(f"  grid_sampler_2d_backward (yardstick only) max_abs_err vs "
         f"kernel: {(library() - d_k).abs().max().item():.3e}")
     C = gw.shape[1]
-    moved = nbytes(gw, cx, cy, d_k, d_k)  # + the zero fill of d_src
+    moved = nbytes(gw, cx, cy, d_k, d_k, d_k)
     log(f"  bytes: {nbytes(gw, cx, cy, d_k) / 1e9:.3f} GB to read each "
-        f"input and write d_src once; the kernel moves {moved / 1e9:.3f} GB "
-        f"(it zero-fills d_src first) plus its atomics' traffic in L2")
+        f"input and write d_src once; the kernel moves ~{moved / 1e9:.3f} "
+        f"GB (it zero-fills d_src first, and its flush's atomics read d_src "
+        f"back and write it again)")
     rows["bilinear_splat"] = dict(
         max_abs_err=err,
         ms=median_ms(lambda: warp.bilinear_splat(gw, cx, cy, (H, W))),
@@ -479,6 +506,13 @@ def check_train_kernels(dev):
         # up pass ~26 (the forward's), down pass ~45 a plane-pixel
         bound=bound(ins + nbytes(*outs), sig.numel() * 71))
     return table_rows(rows)
+
+
+def wide_share(cx, cy, src_hw):
+    """Share of the splat's target tiles that take its direct route."""
+    from mine_tpu_torch.kernels.warp import splat_wide_tiles
+
+    return splat_wide_tiles(cx, cy, src_hw).float().mean().item()
 
 
 def check_autograd(dev):
@@ -556,14 +590,16 @@ def sep_inputs(dev, roll):
 def check_sep_kernels(dev):
     """Phase 10: the separable pair against its plain versions on both
     branches of the guard at scale 0 of the train step; times, yardsticks
-    and bounds of the anchored branch; the autograd Function at a reduced
-    size."""
+    and bounds of the anchored sample (#7) and of both branches of its
+    splat (#8: the row's numbers are the exact branch's, which the
+    `pallas_sep` train path runs, with both under "branches"); the
+    autograd Function at a reduced size."""
     import torch.nn.functional as F
 
     from mine_tpu_torch.kernels import warp_sep
     from mine_tpu_torch.ops.warp_separable import anchored_sample
 
-    rows = {}
+    rows, branches = {}, {}
     for roll, label, want_ok in ((0.0, "translation-dominated", True),
                                  (SEP_ROLL, "rotation-heavy", False)):
         x = sep_inputs(dev, roll)
@@ -572,10 +608,10 @@ def check_sep_kernels(dev):
         del x
         ok, anchor = warp_sep.guard_ok(src.shape, cy, cfg.warp_band,
                                        sep_tol=cfg.warp_sep_tol)
-        branch = "anchored sample" if bool(ok) else "exact gather"
+        branch = "anchored" if bool(ok) else "gather"
         log(f"separable pair, {label} poses (roll {roll} rad): src "
             f"{tuple(src.shape)}, guard (band {cfg.warp_band}, sep_tol "
-            f"{cfg.warp_sep_tol}) -> {branch}")
+            f"{cfg.warp_sep_tol}) -> the {branch} branch")
         if bool(ok) != want_ok:
             raise AssertionError(f"{label} poses: the guard gave "
                                  f"{bool(ok)}, expected {want_ok}")
@@ -595,12 +631,11 @@ def check_sep_kernels(dev):
                                                            anchor, ok))
         ms_d = median_ms(lambda: warp_sep.separable_splat(cot, cx, cy, anchor,
                                                           ok, (H, W)))
-        log(f"  {branch}: sample {ms_s:.4f} ms, splat {ms_d:.4f} ms")
-        if not want_ok:
-            continue
+        log(f"  {branch} branch: sample {ms_s:.4f} ms, splat {ms_d:.4f} ms")
         # the yardsticks compute the same function: grid_sample(border,
-        # align_corners=False) at (cx, anchor), and its input gradient
-        ay = anchor[:, :, None].expand_as(cx)
+        # align_corners=False) at (cx, anchor) or (cx, cy), and its input
+        # gradient
+        ay = anchor[:, :, None].expand_as(cx) if bool(ok) else cy
         grid = torch.stack([(cx + 0.5) / (0.5 * W) - 1.0,
                             (ay + 0.5) / (0.5 * H) - 1.0], dim=-1)
 
@@ -611,34 +646,48 @@ def check_sep_kernels(dev):
         def lib_bwd():
             return torch.ops.aten.grid_sampler_2d_backward(
                 cot, d_k, grid, 0, 1, False, [True, False])[0]
-        log(f"  grid_sample at (cx, anchor) (yardstick only) max_abs_err vs "
-            f"kernel: {(lib_fwd() - out_k).abs().max().item():.3e}; its "
-            f"input gradient vs the splat: "
+        log(f"  grid_sample at (cx, {'anchor' if bool(ok) else 'cy'}) "
+            f"(yardstick only) max_abs_err vs kernel: "
+            f"{(lib_fwd() - out_k).abs().max().item():.3e}; its input "
+            f"gradient vs the splat: "
             f"{(lib_bwd() - d_k).abs().max().item():.3e}")
         C = src.shape[1]
         # the anchored branch reads src (or the cotangent), cx and the
-        # anchors, not cy; taps and tent weights ~14 flops a pixel, then
-        # 6 multiplies and 3 adds (splat: 6 multiplies, 4 atomic adds) a
-        # channel
-        rows["separable_sample"] = dict(
-            max_abs_err=err_s, ms=ms_s,
-            plain_ms=median_ms(lambda: warp_sep.separable_sample_plain(
-                src, cx, cy, anchor, ok), iters=5),
-            library_ms=median_ms(lib_fwd),
-            bound=bound(nbytes(src, cx, anchor, out_k),
-                        cx.numel() * (14 + 9 * C)))
-        rows["separable_splat"] = dict(
+        # anchors, the gather branch cx and cy; taps and tent weights ~14
+        # flops a pixel, then 6 multiplies and 3 adds (splat: 6 multiplies,
+        # 4 adds) a channel
+        ys = anchor if bool(ok) else cy
+        branches[branch] = dict(
             max_abs_err=err_d, ms=ms_d,
             plain_ms=median_ms(lambda: warp_sep.separable_splat_plain(
                 cot, cx, cy, anchor, ok, (H, W)), iters=5),
             library_ms=median_ms(lib_bwd),
-            bound=bound(nbytes(cot, cx, anchor, d_k),
+            bound=bound(nbytes(cot, cx, ys, d_k),
                         cx.numel() * (14 + 10 * C)))
-        log(f"  bytes of the anchored branch: "
-            f"{nbytes(src, cx, anchor, out_k) / 1e9:.3f} GB (sample), "
-            f"{nbytes(cot, cx, anchor, d_k) / 1e9:.3f} GB (splat, plus "
-            f"its zero fill of d_src)")
-        del grid, ay
+        log(f"  bytes of the {branch} branch: "
+            f"{nbytes(src, cx, ys, out_k) / 1e9:.3f} GB (sample), "
+            f"{nbytes(cot, cx, ys, d_k) / 1e9:.3f} GB (splat)")
+        if branch == "gather":
+            log(f"  splat target tiles on the direct (wide) route: "
+                f"{wide_share(cx, cy, (H, W)):.4f}")
+        else:
+            rows["separable_sample"] = dict(
+                max_abs_err=err_s, ms=ms_s,
+                plain_ms=median_ms(lambda: warp_sep.separable_sample_plain(
+                    src, cx, cy, anchor, ok), iters=5),
+                library_ms=median_ms(lib_fwd),
+                bound=bound(nbytes(src, cx, anchor, out_k),
+                            cx.numel() * (14 + 9 * C)))
+        del grid, ay, d_k, out_k
+    rows["separable_splat"] = dict(branches["gather"])
+    for name, b in branches.items():
+        b_ms, b_by = b.pop("bound")
+        b.update(bound_ms=b_ms, bound_by=b_by)
+        lib = b["library_ms"]
+        log(f"separable_splat, {name} branch: kernel {b['ms']:.4f} ms, plain "
+            f"{b['plain_ms']:.4f} ms, library {lib:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by})")
+    rows["separable_splat"]["branches"] = branches
 
     # the Function against autograd through the plain anchored sample
     g = torch.Generator(device=dev).manual_seed(5)
@@ -1216,8 +1265,11 @@ def main():
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "launches_by_path")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys}
-                                  for r in rows.values()]}), flush=True)
+    # a kernel with data-dependent branches also reports each branch
+    print(json.dumps({"kernels": [
+        dict({k: r[k] for k in keys},
+             **{k: r[k] for k in ("branches",) if k in r})
+        for r in rows.values()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -4,7 +4,7 @@ The sources under mine_tpu_torch/csrc/ have a plain C interface; each is
 compiled by its own `nvcc` process (all started together) for sm_90a and
 the objects are linked into one shared library, loaded with ctypes. The
 build lands in mine_tpu_torch/kernels/_build/<hash>/, keyed by a hash of the
-sources and flags, at first use — so a fresh checkout builds on its first
+sources, headers and flags, at first use — so a fresh checkout builds on its first
 kernel call and later calls reuse it.
 
 Nothing here runs at import: the CPU tests import every module of the port
@@ -54,9 +54,14 @@ def sources() -> List[str]:
     return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
 
 
+def headers() -> List[str]:
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
+
+
 def source_hash() -> str:
+    """Hash of the flags, the sources and the headers they include."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in sources():
+    for path in sources() + headers():
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as f:
             h.update(f.read())

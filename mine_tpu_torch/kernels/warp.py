@@ -15,6 +15,12 @@ from mine_tpu_torch.kernels import LAUNCHES, build, check_tensor
 from mine_tpu_torch.ops.warp import bilinear_sample as bilinear_sample_plain
 from mine_tpu_torch.ops.warp import clamp_coords
 
+# the splat kernel's tile of target pixels (rows, columns) and the budget
+# of its shared window in source pixels (csrc/warp.cu TILE_H/TILE_W,
+# WIN_PIXELS)
+SPLAT_TILE = (8, 32)
+SPLAT_WINDOW = 24 * 64
+
 
 def _check_warp(name, src_shape, coords_x, coords_y, dev):
     Bp = src_shape[0]
@@ -82,6 +88,39 @@ def bilinear_splat_plain(g: torch.Tensor, coords_x: torch.Tensor,
         idx = (yi * W + xi).reshape(Bp, 1, Ho * Wo).expand(Bp, C, Ho * Wo)
         d_src.scatter_add_(2, idx, val.reshape(Bp, C, Ho * Wo))
     return d_src.reshape(Bp, C, H, W)
+
+
+def splat_wide_tiles(coords_x: torch.Tensor, coords_y: torch.Tensor,
+                     src_hw) -> torch.Tensor:
+    """Which target tiles the splat kernel adds straight into d_src: the
+    tiles (SPLAT_TILE target pixels of one plane) whose taps' bounding box,
+    its x extent rounded out to 4 pixels where W_s is a multiple of 4, is
+    larger than the kernel's shared window of SPLAT_WINDOW source pixels.
+    coords [B',H_t,W_t] -> [B', tiles_y, tiles_x] bool, computed as
+    csrc/warp.cu computes it (a report of the route, not part of the
+    function)."""
+    H, W = src_hw
+    th, tw = SPLAT_TILE
+    x0 = torch.floor(clamp_coords(coords_x, W))
+    y0 = torch.floor(clamp_coords(coords_y, H))
+    x1 = torch.clamp(x0 + 1, max=W - 1)
+    y1 = torch.clamp(y0 + 1, max=H - 1)
+    Bp, H_t, W_t = coords_x.shape
+    pad = (0, -W_t % tw, 0, -H_t % th)
+
+    def tiles(v, fill, reduce):
+        v = torch.nn.functional.pad(v, pad, value=fill)
+        v = v.reshape(Bp, v.shape[1] // th, th, v.shape[2] // tw, tw)
+        return reduce(reduce(v, dim=4).values, dim=2).values
+
+    big = float(2 ** 24)
+    bx0, by0 = (tiles(v, big, torch.min) for v in (x0, y0))
+    bx1, by1 = (tiles(v, -big, torch.max) for v in (x1, y1))
+    bx1 = bx1 + 1
+    if W % 4 == 0:
+        bx0 = torch.floor(bx0 / 4) * 4
+        bx1 = torch.ceil(bx1 / 4) * 4
+    return (bx1 - bx0) * (by1 - by0 + 1) > SPLAT_WINDOW
 
 
 def bilinear_splat(g: torch.Tensor, coords_x: torch.Tensor,

@@ -9,10 +9,12 @@ sample only where the kernel form of the decision passes
 (kernels/warp_sep.py guard_ok: the anchors' block span fits the band with
 the TPU's alignment slack, sep_err <= sep_tol, H_t and H_s multiples of
 8), and the exact gather elsewhere. The decision is a 0-dim bool tensor on
-the device (ops/warp_separable.py); both kernels read it through a
+the device (ops/warp_separable.py); the kernels read it through a
 pointer and run the anchored sample/splat or the exact gather/splat, so
-no host read and no second launch decides the branch. The plain versions
-compute both branches and select with the same flag.
+no host read decides the branch (the splat is two launches, the anchored
+row kernel and csrc/warp.cu's exact splat, each doing nothing on the
+other branch; one counted launch a call). The plain versions compute
+both branches and select with the same flag.
 """
 
 from __future__ import annotations

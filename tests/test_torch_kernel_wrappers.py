@@ -8,8 +8,9 @@ This file imports no JAX, so the card's machine (which has none) runs it:
 Tolerances as tests/test_torch_kernels.py: rtol 1e-5 / atol 1e-6 for rgb,
 rtol 1e-4 / atol 1e-5 for depth, atol 3e-4 for is_bg_depth_inf depth; the
 gather is compared bitwise (same operations in the same order, each
-rounded on its own). The backward kernels: the splat at rtol 1e-5 /
-atol 1e-6 (float atomics add in a varying order), the composite backward
+rounded on its own). The backward kernels: the splats at rtol 1e-5 /
+atol 1e-6 (float atomics, in shared memory and in device memory, add in
+a varying order; every addend is the plain version's), the composite backward
 at tests/test_composite_vjp.py's rtol 2e-3 / atol 2e-4 (its chain rule is
 hand-derived, the plain version is autograd's), atol 2e-3 on d_sigma and
 d_xyz with is_bg_depth_inf (the depth cotangent is scaled by 1000 there).
@@ -45,6 +46,92 @@ def _volume(seed, B, S, H, W, device="cpu"):
     xyz[:, :, 2] += torch.linspace(1.0, 8.0, S)[None, :, None, None]
     xyz[:, :, 2, 0, :3] = -0.5
     return rgb.to(device), sigma.to(device), xyz.to(device)
+
+
+# The splat's adversarial coordinate sets (numpy, seeded; shared with the
+# CPU parity test of the plain splat in tests/test_torch_losses.py): each
+# is (source (H_s, W_s), coords_x, coords_y [B',H_t,W_t] f32).
+SPLAT_CASES = ("border and integers", "ragged tiles", "zoom-out x3",
+               "nan and far", "unaligned rows")
+
+
+def splat_coords(kind, seed=0):
+    """`kind` of SPLAT_CASES:
+    - border and integers: random coordinates up to 4 px outside a 10x13
+      source, some on exact borders and integers (9x11 target);
+    - ragged tiles: a 13x37 target (no multiple of the splat kernel's
+      8x32 tile) spread over a 12x20 source with noise, partly outside;
+    - zoom-out x3: a 24x64 target zoomed out 3x about the centre of a
+      72x192 source: every tile's taps spread past the kernel's shared
+      window (its direct route);
+    - nan and far: a near-identity 40x96 -> 40x100 map with a few NaN
+      coordinates (they read pixel 0) and far-outside ones (+-1e9, inf:
+      they clamp onto border pixels), which spread some tiles past the
+      window;
+    - unaligned rows: a near-identity 16x40 -> 18x42 map (W_s no multiple
+      of 4: the kernel's scalar flush)."""
+    rng = np.random.RandomState(seed)
+    Bp = 3
+
+    def near_identity(h_t, w_t, src_hw, noise):
+        yy, xx = np.mgrid[0:h_t, 0:w_t].astype(np.float32)
+        sx = (src_hw[1] - 1) / max(w_t - 1, 1)
+        sy = (src_hw[0] - 1) / max(h_t - 1, 1)
+        cx = xx[None] * sx + rng.uniform(-noise, noise, (Bp, h_t, w_t))
+        cy = yy[None] * sy + rng.uniform(-noise, noise, (Bp, h_t, w_t))
+        return cx.astype(np.float32), cy.astype(np.float32)
+
+    if kind == "border and integers":
+        src_hw = (10, 13)
+        cx = rng.uniform(-4, 17, size=(Bp, 9, 11)).astype(np.float32)
+        cy = rng.uniform(-4, 14, size=(Bp, 9, 11)).astype(np.float32)
+        cx[0, 0, :4] = [0.0, 12.0, 5.0, -0.0]
+        cy[0, 1, :3] = [9.0, 0.0, 3.0]
+    elif kind == "ragged tiles":
+        src_hw = (12, 20)
+        cx, cy = near_identity(13, 37, src_hw, 2.5)
+    elif kind == "zoom-out x3":
+        src_hw = (72, 192)
+        yy, xx = np.mgrid[0:24, 0:64].astype(np.float32)
+        cx = (xx - 32.0) * 3.0 + 96.0 + rng.uniform(0, 0.5, (Bp, 24, 64))
+        cy = (yy - 12.0) * 3.0 + 36.0 + rng.uniform(0, 0.5, (Bp, 24, 64))
+    elif kind == "nan and far":
+        src_hw = (40, 100)
+        cx, cy = near_identity(40, 96, src_hw, 0.45)
+        cx[0, 2, 3] = np.nan
+        cx[0, 30, 70] = cy[0, 30, 70] = np.nan
+        cy[1, 30, 75] = np.nan
+        cx[1, 4, 40] = 1e9
+        cy[2, 33, 20] = -1e9
+        cx[2, 17, 90] = -np.inf
+        cx[2, 36, 10], cy[2, 36, 10] = 1e9, -1e9
+    elif kind == "unaligned rows":
+        src_hw = (18, 42)
+        cx, cy = near_identity(16, 40, src_hw, 0.45)
+    else:
+        raise ValueError(kind)
+    return src_hw, cx.astype(np.float32), cy.astype(np.float32)
+
+
+def test_splat_wide_tiles_follow_the_window_budget():
+    """The plain count of the splat kernel's direct-route tiles: none for
+    near-identity maps, every tile of the 3x zoom-out, and only the tiles
+    that hold a NaN or far-outside coordinate of the NaN case."""
+    t = torch.from_numpy
+    for kind in ("ragged tiles", "unaligned rows"):
+        src_hw, cx, cy = splat_coords(kind)
+        assert not warp.splat_wide_tiles(t(cx), t(cy), src_hw).any(), kind
+    src_hw, cx, cy = splat_coords("zoom-out x3")
+    wide = warp.splat_wide_tiles(t(cx), t(cy), src_hw)
+    assert wide.shape == (3, 3, 2) and wide.all()
+    src_hw, cx, cy = splat_coords("nan and far")
+    wide = warp.splat_wide_tiles(t(cx), t(cy), src_hw)
+    assert wide.shape == (3, 5, 3)
+    # the tiles of pixels (0, 30, 70), NaN in x and y (it reads pixel 0),
+    # and (2, 36, 10), far outside to the top right: their taps span more
+    # than 1536 source pixels; the tiles of the other NaN and far pixels
+    # (one coordinate each) still fit the window
+    assert wide.nonzero().tolist() == [[0, 3, 2], [2, 4, 0]]
 
 
 def test_wrappers_take_plain_version_only_for_cpu_tensors(monkeypatch):
@@ -109,14 +196,25 @@ def test_kernel_table_names_sources_and_pallas_calls():
             assert "pl.pallas_call(" in f.read().splitlines()[int(line) - 1]
 
 
-def test_build_is_keyed_by_the_sources():
+def test_build_is_keyed_by_the_sources(tmp_path, monkeypatch):
     digest = kernels.build.source_hash()
     assert len(digest) == 16
     assert [os.path.basename(p) for p in kernels.build.sources()] == \
         ["composite.cu", "render_fused.cu", "warp.cu", "warp_sep.cu"]
+    assert [os.path.basename(p) for p in kernels.build.headers()] == \
+        ["block_scan.cuh"]
     for name in kernels.build.SIGNATURES:
         src = "".join(open(p).read() for p in kernels.build.sources())
         assert f'extern "C" int {name}(' in src, name
+    # a header the sources include keys the build as a source does
+    import shutil
+    csrc = tmp_path / "csrc"
+    shutil.copytree(kernels.build.CSRC_DIR, csrc)
+    monkeypatch.setattr(kernels.build, "CSRC_DIR", str(csrc))
+    assert kernels.build.source_hash() == digest
+    with open(csrc / "block_scan.cuh", "a") as f:
+        f.write("\n")
+    assert kernels.build.source_hash() != digest
 
 
 @pytest.fixture
@@ -305,3 +403,90 @@ def test_cuda_separable_pair_matches_plain_versions_on_both_branches(
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["separable_sample"] == 3
     assert kernels.LAUNCHES["separable_splat"] == 3
+
+
+SPLAT_TOL = dict(rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", SPLAT_CASES)
+def test_cuda_splats_match_plain_versions_on_adversarial_coords(
+        cuda_device, kind):
+    """The tiled exact splat (#5, and #8's exact branch, which runs the
+    same kernel behind its zero-filling row kernel) against the plain
+    versions: ragged tiles, a source of another size, the direct route of
+    a zoom-out, NaN and far-outside coordinates, W_s no multiple of 4; one
+    counted launch a call."""
+    src_hw, cx, cy = (v if isinstance(v, tuple) else
+                      torch.from_numpy(v).to(cuda_device)
+                      for v in splat_coords(kind))
+    g = torch.Generator(device=cuda_device).manual_seed(21)
+    cot = torch.randn((cx.shape[0], 7) + tuple(cx.shape[1:]), generator=g,
+                      device=cuda_device)
+    anchor = torch.zeros(cx.shape[:2], device=cuda_device)
+    off = torch.zeros((), dtype=torch.bool, device=cuda_device)
+    kernels.reset_launches()
+    _close(warp.bilinear_splat(cot, cx, cy, src_hw),
+           warp.bilinear_splat_plain(cot, cx, cy, src_hw), SPLAT_TOL)
+    _close(warp_sep.separable_splat(cot, cx, cy, anchor, off, src_hw),
+           warp_sep.separable_splat_plain(cot, cx, cy, anchor, off, src_hw),
+           SPLAT_TOL)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == dict({n: 0 for n in kernels.KERNELS},
+                                    bilinear_splat=1, separable_splat=1)
+
+
+# anchored cases of the separable splat: (H_t, H_s, anchors of plane 0
+# [H_t] as a function of the row index i, W_t); plane b adds 0.37*b
+ANCHOR_CASES = {
+    # neighbouring target rows share their source rows
+    "shared rows": (24, 16, lambda i: 1.2 + 0.4 * i, 37),
+    # a zoom-out: one source row collects 5 target rows (10 with hi)
+    "zoom-out": (40, 12, lambda i: 2.0 + 0.2 * i, 37),
+    # rows at and past the bottom: lo == hi == H_s-1 (also exactly H_s-1)
+    "bottom border": (16, 12, lambda i: 7.0 + 0.5 * i, 37),
+    # more target rows than the row kernel selects at a time (256), rows
+    # longer than it sorts at a time (512 pixels)
+    "many long rows": (300, 280, lambda i: 0.9 * i, 600),
+    # rows wider than the row kernel's shared sums hold: column chunks and
+    # one channel a pass
+    "wide rows": (8, 6, lambda i: 0.6 * i, 2600),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", list(ANCHOR_CASES))
+def test_cuda_anchored_splat_matches_plain_on_both_flags(cuda_device, kind):
+    """The separable splat (#8) against its plain version with `ok` set
+    and cleared at anchors that make the row kernel's selection work:
+    shared source rows, a source row that collects many target rows, the
+    bottom-border row with lo == hi, more rows and longer rows than the
+    kernel takes at a time; sources 7 pixels wider than the target, x
+    taps partly outside, y taps (the exact branch's) about the anchors."""
+    H_t, H_s, rows, W_t = ANCHOR_CASES[kind]
+    Bp, C, W_s = 3, 7, W_t + 7
+    g = torch.Generator(device=cuda_device).manual_seed(23)
+    i = torch.arange(H_t, dtype=torch.float32, device=cuda_device)
+    anchor = (rows(i)[None] + 0.37 * torch.arange(
+        Bp, dtype=torch.float32, device=cuda_device)[:, None]).contiguous()
+    if kind == "bottom border":
+        anchor[0, 8] = H_s - 1.0
+        assert (anchor >= H_s - 1).sum() >= 8
+    # source x across the row with 3 px of noise (partly outside), source
+    # y about the row's anchor (the taps of the exact branch)
+    j = torch.arange(W_t, dtype=torch.float32, device=cuda_device)
+    cx = j * (W_s - 1) / (W_t - 1) + 6 * torch.rand(
+        (Bp, H_t, W_t), generator=g, device=cuda_device) - 3
+    cy = anchor[:, :, None] + torch.rand(
+        (Bp, H_t, W_t), generator=g, device=cuda_device) - 0.5
+    cot = torch.randn((Bp, C, H_t, W_t), generator=g, device=cuda_device)
+    kernels.reset_launches()
+    for ok in (True, False):
+        flag = torch.tensor(ok, device=cuda_device)
+        _close(warp_sep.separable_splat(cot, cx, cy, anchor, flag,
+                                        (H_s, W_s)),
+               warp_sep.separable_splat_plain(cot, cx, cy, anchor, flag,
+                                              (H_s, W_s)), SPLAT_TOL)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == dict({n: 0 for n in kernels.KERNELS},
+                                    separable_splat=2)

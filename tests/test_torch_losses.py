@@ -34,6 +34,7 @@ from mine_tpu_torch.ops import sampling as tsampling
 from mine_tpu_torch.train import loss as tloss
 from tests.kernel_test_utils import interpret
 from tests.test_kernels import _volume as jax_volume
+from tests.test_torch_kernel_wrappers import SPLAT_CASES, splat_coords
 
 SPLAT_TOL = dict(rtol=1e-4, atol=1e-4)
 BWD_TOL = dict(rtol=2e-3, atol=2e-4)
@@ -61,19 +62,22 @@ def _mild_coords(rng, Bp, H, W):
     return x.astype(np.float32), y.astype(np.float32)
 
 
-def test_splat_is_jax_grad_of_the_gather_border_included():
+@pytest.mark.parametrize("kind", SPLAT_CASES)
+def test_splat_is_jax_grad_of_the_gather_border_included(kind):
     """The plain splat == jax.grad of the XLA gather w.r.t. src, at any
-    coordinates: out of the image, on exact borders and integers."""
+    coordinates: out of the image, on exact borders and integers, ragged
+    target tiles, a source of another size, a 3x zoom-out, far outside
+    (the coordinate sets the CUDA splat is held to on the card). A NaN
+    coordinate reads pixel 0 in the port (JAX's gather gives NaN there),
+    so JAX is given 0 in its place."""
     rng = np.random.RandomState(0)
-    Bp, C, H, W = 3, 5, 10, 13
+    (H, W), cx, cy = splat_coords(kind)
+    Bp, C = cx.shape[0], 5
     src = rng.normal(size=(Bp, C, H, W)).astype(np.float32)
-    cx = rng.uniform(-4, 17, size=(Bp, 9, 11)).astype(np.float32)
-    cy = rng.uniform(-4, 14, size=(Bp, 9, 11)).astype(np.float32)
-    cx[0, 0, :4] = [0.0, 12.0, 5.0, -0.0]
-    cy[0, 1, :3] = [9.0, 0.0, 3.0]
-    cot = rng.normal(size=(Bp, C, 9, 11)).astype(np.float32)
-    want = jax.grad(lambda s: jnp.sum(jwarp.bilinear_sample(
-        s, jnp.asarray(cx), jnp.asarray(cy)) * cot))(jnp.asarray(src))
+    cot = rng.normal(size=(Bp, C) + cx.shape[1:]).astype(np.float32)
+    jx, jy = (jnp.asarray(np.where(np.isnan(c), 0.0, c)) for c in (cx, cy))
+    want = jax.grad(lambda s: jnp.sum(jwarp.bilinear_sample(s, jx, jy)
+                                      * cot))(jnp.asarray(src))
     got = warp.bilinear_splat_plain(_t(cot), _t(cx), _t(cy), (H, W))
     _close(got, want, SPLAT_TOL)
     # the wrapper takes the plain version for CPU tensors

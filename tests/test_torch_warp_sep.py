@@ -41,16 +41,17 @@ def _rot_z(angle):
                         dtype=torch.float32)
 
 
-def _coords(roll=0.0, tz=0.0, h=H, w=W):
+def _coords(roll=0.0, tz=0.0, h=H, w=W, ty=-0.02):
     """Source coords of BP planes (disparities 1..1/4) under one pose:
-    a small translation, a roll of `roll` rad (row-varying cy: the
-    separability error) and a forward move `tz` (a zoom: the anchors'
-    block span grows past a narrow band)."""
+    a small translation (`ty` vertically), a roll of `roll` rad
+    (row-varying cy: the separability error) and a forward move `tz` (a
+    zoom: the anchors' block span grows past a narrow band; a backward
+    move zooms out)."""
     K = torch.from_numpy(geometry.intrinsics_from_fov(h, w))[None].expand(
         BP, 3, 3)
     G = torch.eye(4).repeat(BP, 1, 1)
     G[:, :3, :3] = _rot_z(roll)
-    G[:, :3, 3] = torch.tensor([0.03, -0.02, tz])
+    G[:, :3, 3] = torch.tensor([0.03, ty, tz])
     x, y, _ = warp.warp_coords(torch.linspace(1.0, 4.0, BP), G,
                                torch.linalg.inv(K), K,
                                geometry.cached_pixel_grid(h, w), (h, w))
@@ -153,10 +154,28 @@ def test_out_of_domain_is_the_exact_gather_and_its_splat(src):
     np.testing.assert_allclose(gather, np.asarray(jout), **VALUE_TOL)
 
 
-def test_splat_matches_jax_sep_bwd_and_grad_of_the_pure_form(src):
-    cx, cy = _coords(*POSES["zoom"])
+# anchored splat cases (roll, tz, ty): a zoom-in whose top and bottom
+# rows clamp onto the border rows; a zoom-out, where up to 5 target rows
+# read one source row and neighbouring rows share their source rows; a
+# move that pushes the lower target rows past the bottom (lo == hi ==
+# H_s-1, both of a row's taps on one source row)
+SPLAT_POSES = {"zoom": POSES["zoom"] + (-0.02,),
+               "zoom out": (0.0, -0.8, -0.02),
+               "past the bottom": (0.0, 0.0, -0.5)}
+
+
+@pytest.mark.parametrize("kind", list(SPLAT_POSES))
+def test_splat_matches_jax_sep_bwd_and_grad_of_the_pure_form(src, kind):
+    roll, tz, ty = SPLAT_POSES[kind]
+    cx, cy = _coords(roll, tz, ty=ty)
     ok, anchor = warp_sep.guard_ok(src.shape, cy, 48)
     assert bool(ok)
+    lo = torch.floor(warp.clamp_coords(anchor, H))
+    rows_per_src = torch.stack([torch.bincount(r.long(), minlength=H)
+                                for r in lo])
+    assert rows_per_src.max() >= 2  # target rows that share a source row
+    if kind == "past the bottom":
+        assert (anchor >= H - 1).sum() >= 8
     g = np.random.RandomState(3).normal(size=src.shape).astype(np.float32)
     kernels.reset_launches()
     got = warp_sep.separable_splat(torch.from_numpy(g), cx, cy, anchor, ok,
